@@ -1,7 +1,7 @@
 // C ABI around the REFERENCE engine compiled from
 // /root/reference/src/core (see golden/README.md): the public
 // ISyncProblem surface plus hooks into the deterministic internals
-// (opt_compute_problem, FrameState::Loss, ndspline eval) so the TPU
+// (opt_compute_problem, FrameState::Loss, ndspline eval) so the JAX
 // rebuild can be checked against true reference tensors, not a
 // reimplemented oracle. Ref: src/core/core_private.cpp:15-32 (P),
 // :92-133 (Loss), :61-90/:205-361 (PreSync/Sync/DebugPreSync).

@@ -1,12 +1,12 @@
-"""rssync_tpu — TPU-native gyro-to-video clock synchronization framework.
+"""rssync_tpu — gyro-to-video clock synchronization on an NVIDIA GPU.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of VladimirP1/rs-sync
-(reference mounted at /root/reference): recover the slowly drifting clock delay
+(the reference): recover the slowly drifting clock delay
 between a rolling-shutter camera video and its gyroscope log with
 sub-millisecond accuracy, so stabilization software can warp frames using the
 gyro orientation history.
 
-Layering (mirrors reference SURVEY.md §1, rebuilt TPU-first):
+Layering (mirrors reference SURVEY.md §1):
 
   ops/       pure math kernels: quaternions, natural cubic splines, fisheye
              lens model, robust-loss helpers        (ref: src/core_support/)

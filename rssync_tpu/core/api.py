@@ -102,8 +102,8 @@ def resample_quats_us(
     t = np.where(idx > 0, t, 0.0)
     # host-f64 SLERP (same semantics as ops/quat.slerp: antipodal flip
     # + small-angle lerp fallback, ref quat.cpp:55-74). Ingest is
-    # host-side; routing through jnp here costs ~100 s of tiny-op
-    # compiles on the remote backend's first call.
+    # host-side; routing through jnp here would cost many tiny-op
+    # compiles on the first call.
     new_q = _slerp64(quats[..., lo, :], quats[..., hi, :], t)
     return rounded_sr_hz, new_ts, new_q
 

@@ -1,12 +1,13 @@
 """PreSync: brute-force coarse delay search as one vmapped launch.
 
-TPU-native rebuild of `pre_sync` / `DebugPreSync`
+JAX rebuild of `pre_sync` / `DebugPreSync`
 (ref: src/core/core_private.cpp:61-90, 336-361). The reference runs a
 sequential delay loop with a TBB parallel frame loop inside; here the
 whole (delay-grid x frames x features x hypotheses) volume is a single
 XLA computation: the delay grid is processed in vmapped chunks via
-`lax.map` so HBM peak stays bounded (chunk x windows x frames x
-features intermediates) while each chunk still saturates the chip.
+`lax.map` so peak device memory stays bounded (chunk x windows x
+frames x features intermediates) while each chunk still fills the
+device.
 """
 
 from __future__ import annotations
@@ -23,15 +24,11 @@ from rssync_tpu.ops.robust import clamp_k
 #: RANSAC hypothesis count inside the coarse cost (ref :77).
 PRESYNC_RANSAC_ITERS = 20
 
-#: delay-grid points evaluated concurrently per lax.map step (peak HBM
-#: ~ chunk x windows x frames x features intermediates). Swept in
-#: experiments/bench_presync.py: the stage is materialization-bound,
-#: so SMALLER chunks fuse better — 8 beat 32 by ~20% at the reference
-#: operating point while still filling the chip. Re-swept after the
-#: delay-blocked scoring kernel (experiments/r4_dblock.py): 4 beats 8
-#: (231 vs 280 ms; 2 is 226 but at 14x the compile time, and b_tile=3
-#: saves only 4.5 ms while sitting within 8% of Mosaic's 16 MB
-#: scoped-VMEM limit).
+#: delay-grid points evaluated concurrently per lax.map step (peak
+#: device memory ~ chunk x windows x frames x features intermediates).
+#: Smaller chunks bound memory and fuse better; smaller than 4 costs
+#: much more compile time. The value on the H100 is not measured yet
+#: (a sweep is ROADMAP.md S2).
 DELAY_CHUNK = 4
 
 
@@ -62,7 +59,7 @@ def cost_with_motion(P: jnp.ndarray, M: jnp.ndarray, frame_mask: jnp.ndarray) ->
         frame cost = sqrt( sum_i sqrt(log1p(r_i^2)) )
     window cost = sum over frames. P is SoA (3, F, N), padded entries 0.
     """
-    PM = jnp.einsum("cfn,fc->fn", P, M)
+    PM = jnp.einsum("cfn,fc->fn", P, M, precision="highest")
     k = clamp_k(1e2 / jnp.maximum(
         jnp.sqrt(jnp.sum(PM * PM, axis=-1)), 1e-30
     ))  # (F,)
@@ -85,15 +82,6 @@ def window_cost(
         P, win.counts, key, PRESYNC_RANSAC_ITERS
     )  # (F, 3)
     return cost_with_motion(P, M, win.frame_mask)
-
-
-# NOTE (round-4 negative result, experiments/r4_presync.py): a
-# `chunk_costs` variant that flattened (delay-chunk x window x frame)
-# into one row axis for the scoring kernel — 2.7x fewer, larger Pallas
-# programs via guess_motion_rows — measured 299 vs 283 ms at the
-# operating point: the (K, W, 3, F, N) -> (3, K*W*F, N) transpose
-# costs more than the program merging saves. The per-(delay, window)
-# vmap structure below stays.
 
 
 @partial(jax.jit, static_argnames=("wide",))

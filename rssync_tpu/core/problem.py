@@ -1,6 +1,6 @@
 """Device-resident sync-problem tensors and the epipolar residual builder.
 
-TPU-native rebuild of `OptData`/`FrameData` + `opt_compute_problem`
+JAX rebuild of `OptData`/`FrameData` + `opt_compute_problem`
 (ref: src/core/core_private.hpp:8-22, core_private.cpp:15-32).
 
 The reference stores per-frame ragged ray matrices in a hash map and
@@ -19,11 +19,10 @@ Two load-bearing layout decisions:
 
 2. **Structure-of-arrays**: rays, quaternions and residual rows keep
    their small structure axis (3 or 4) LEADING and the big
-   (frames, features) axes trailing, because the TPU memory layout
-   tiles the last two dims to (8, 128) — a trailing size-3/4 axis
-   pads 32-42x and at batched-PreSync scale that turns ~200 MB of
-   intermediates into ~100 GB. All hot-path tensors here are 2-D+
-   with batch dims minor.
+   (frames, features) axes trailing, so that the minor dimension of
+   every hot-path tensor is a long one (features or frames) and never
+   a size-3/4 axis that a tiled layout would pad many times over. All
+   hot-path tensors here are 2-D+ with batch dims minor.
 """
 
 from __future__ import annotations
@@ -73,10 +72,8 @@ class SplineTable:
 #: and the floor term in {0, 1} (f0 in [0, 1], incl. the f32-rounded
 #: endpoint), so rel spans [1, span + 2] and span+3 knots always
 #: cover it; boundary clamps only shrink rel. The band width sets the
-#: dominant VPU select cost of the banded eval: round 3 halved it by
-#: quantizing 16 -> 8 (Sync(4x) 347 -> 227 ms); round 4 went exact
-#: (8 -> 5 at the GoPro operating point, PreSync 229 -> 214 ms,
-#: bitwise-identical costs — experiments/r4_band6.py)
+#: dominant select cost of the banded eval (exact band: 5 at the GoPro
+#: operating point, bitwise-identical costs to wider bands)
 BAND = 16
 
 #: wide-band machinery (see make_wide_bands): per-frame WIDE-knot slabs
@@ -365,10 +362,9 @@ def _select_and_horner(sub, sub_start, xi, h_in, n):
     """Shared banded-eval core: per-ray coefficient select from a
     (F, 16, band) slab + Horner + boundary branches.
 
-    Per-element gathers run ~100M elem/s on TPU, so each ray selects
-    its 16 coefficients with fused VPU compares (band x 16 FMAs, no
-    memory traffic — the window's static `band` width sets this
-    dominant cost). Boundary semantics identical to
+    Each ray selects its 16 coefficients with fused elementwise
+    compares (band x 16 FMAs, no per-element gathers — the window's
+    static `band` width sets this dominant cost). Boundary semantics identical to
     ops.spline.eval_spline_packed."""
     band = sub.shape[-1]
     idx = jnp.clip(xi, 0, n - 1)
@@ -459,7 +455,8 @@ def compute_problem(
     Fully batched and gather-free: banded spline eval (wide-band slabs
     when `bands` is given — callers must guarantee
     |delay - bands.center| * rate <= WIDE_SMAX), quaternion
-    normalize/rotate as scalar-component VPU math, one cross product.
+    normalize/rotate as scalar-component elementwise math, one cross
+    product.
     vmap-able over leading delay/window axes.
     """
     shift = gyro_delay * table.sample_rate

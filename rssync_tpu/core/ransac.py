@@ -1,6 +1,6 @@
 """RANSAC-style translation-direction guesser, vmapped over hypotheses.
 
-TPU-native rebuild of `opt_guess_translational_motion`
+JAX rebuild of `opt_guess_translational_motion`
 (ref: src/core/core_private.cpp:34-59): hypotheses are cross products
 of two distinct random rows of the *raw* residual matrix P; each is
 scored by the 25th-percentile squared residual of the *row-normalized*
@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from rssync_tpu.core.problem import cross_soa
+from rssync_tpu.ops.pallas_score import BISECT_ROUNDS, MARKOV_C, score_quartile
 
 
 def sample_pairs(key: jax.Array, iters: int, count) -> tuple[jnp.ndarray, jnp.ndarray]:
@@ -65,28 +66,25 @@ def guess_motion_from_pairs(
     vinv = jnp.where(vn2 < 1e-24, 1.0, jax.lax.rsqrt(jnp.maximum(vn2, 1e-30)))
     v = v * vinv[None]
 
-    res = jnp.einsum("ci,cn->in", v, nP)  # (iters, N)
+    res = jnp.einsum(
+        "ci,cn->in", v, nP, precision=jax.lax.Precision.HIGHEST
+    )  # (iters, N)
     res2 = res * res
     valid = (jnp.arange(N) < count)[None, :]
     # quartile of the VALID rows (ref :51-52 with n_rows == count):
-    # k-th smallest via value bisection — a full jnp.sort of the
-    # feature axis is ~2x slower end to end (measured,
-    # experiments/bench_presync.py). The bisection is HBM-bound on
-    # re-reading res2 every round, so the compare buffer is bf16
-    # (same 8-bit exponent as f32 — the ~1e-12..1 squared-residual
-    # range is representable; half the traffic) and 14 halvings
-    # resolve the quantile to ~range * 6e-5 — both far below the
+    # k-th smallest via value bisection instead of a full sort of the
+    # feature axis. The compare buffer is bf16 (same 8-bit exponent as
+    # f32 — the ~1e-12..1 squared-residual range is representable;
+    # half the bytes of each re-read) and BISECT_ROUNDS halvings of
+    # the Markov bracket resolve the quantile far below the
     # hypothesis-RNG noise that already decides near-tied hypotheses.
-    from rssync_tpu.ops.pallas_score import BISECT_ROUNDS, MARKOV_C
-
     k = jnp.maximum(count, 1) // 4
     res2m = jnp.where(valid, res2, jnp.inf).astype(jnp.bfloat16)
     lo = jnp.zeros((res2.shape[0],), res2.dtype)
     # Markov upper bracket: > half the valid values sit at or below
-    # 2*mean, so it always brackets the quartile and is typically
-    # 30-100x tighter than max on these heavy-tailed residuals —
-    # 10 rounds resolve finer than 14 did on [0, max]
-    # (ops/pallas_score.py, kept numerically identical here)
+    # 2*mean, so it always brackets the quartile and is far tighter
+    # than max on these heavy-tailed residuals (ops/pallas_score.py,
+    # kept numerically identical here)
     masked = jnp.where(valid, res2, 0.0)
     mu = jnp.sum(masked, axis=-1) / jnp.maximum(count, 1)
     hi = jnp.minimum(jnp.max(masked, axis=-1), MARKOV_C * mu)
@@ -132,11 +130,10 @@ def guess_motion_window(
 
     Pair draws are identical to `vmap(guess_motion)` over the same
     per-frame key split. Hypothesis rows are selected with exact
-    one-hot matmuls (0/1 weights — bitwise equal to fancy indexing).
-    Scoring dispatches to the VMEM-resident Pallas bisection on TPU
-    (ops/pallas_score.py — the XLA formulation re-reads the residual
-    volume from HBM 14x and dominates PreSync); elsewhere it keeps
-    the original XLA bisect numerics exactly.
+    one-hot matmuls (0/1 weights at HIGHEST precision — bitwise equal
+    to fancy indexing). Scoring goes through
+    ops/pallas_score.score_quartile (`impl`: None = the backend's
+    choice, "triton" or "xla").
     """
     F = P.shape[1]
     keys = jax.random.split(key, F)
@@ -153,13 +150,9 @@ def guess_motion_window_batched(
     """A BATCH of whole-window guessers: P (B, 3, F, N), counts
     (B, F), keys (B, 2) — per-batch key splits identical to
     `vmap(guess_motion_window)` over the batch axis (PreSync flattens
-    delay-chunk x windows into B). Same math, but the Pallas scoring
-    kernel runs with _b_tile problems per program instead of one
-    Mosaic grid cell each — per-program overhead dominated the
-    PreSync scoring stage (experiments/r4_presync_split2.py /
-    r4_dblock.py). Returns (B, F, 3)."""
-    from rssync_tpu.ops import pallas_score as PSC
-
+    delay-chunk x windows into B). Same math; the scoring kernel takes
+    the batch axis directly (one launch over B x F rows). Returns
+    (B, F, 3)."""
     B, _, F, N = P.shape
 
     def prelude(P1, c1, k1):
@@ -192,21 +185,13 @@ def guess_motion_window_batched(
         return nP, v * vinv[None]
 
     nP, v = jax.vmap(prelude)(P, counts, keys)
-    if impl is None:
-        impl = (
-            "pallas"
-            if PSC.on_tpu() and PSC.fits_vmem_batched(F, iters, N)
-            else "xla"
-        )
-    if impl == "pallas":
-        med = PSC.score_quartile_pallas_batched(nP, v, counts)
-    else:
-        med = jax.vmap(PSC.score_quartile_xla)(nP, v, counts)  # (B, F, I)
+    med = score_quartile(nP, v, counts, impl)  # (B, F, I)
 
     best = jnp.argmin(med, axis=-1)  # (B, F)
     sel = (jnp.arange(iters)[None, None, :] == best[..., None]).astype(
         P.dtype)
-    vb = jnp.einsum("bcfi,bfi->bfc", v, sel)  # exact one-hot select
+    vb = jnp.einsum(  # exact one-hot select
+        "bcfi,bfi->bfc", v, sel, precision=jax.lax.Precision.HIGHEST)
     tiny = jnp.sum(vb * vb, axis=-1) < 1e-12
     fallback = jnp.asarray([0.0, 0.0, 1.0], vb.dtype)
     return jnp.where(tiny[..., None], fallback[None, None], vb)
@@ -218,14 +203,8 @@ def guess_motion_rows(
 ) -> jnp.ndarray:
     """Row-batched guesser core: each of the F rows of P (3, F, N) is
     an independent RANSAC problem with its own pre-drawn pairs. The
-    row axis may be ANY flattening of batch axes — PreSync flattens
-    (delay-chunk x windows x frames) into it so the Pallas scoring
-    kernel sees one big grid instead of thousands of per-(delay,
-    window) programs (per-program overhead dominated the stage,
-    experiments/r3_presync_split.py)."""
-    from rssync_tpu.ops import pallas_score as PSC
-
-    F, N = P.shape[1], P.shape[2]
+    row axis may be any flattening of batch axes."""
+    N = P.shape[2]
     iters = r0.shape[-1]
 
     Pn2 = jnp.sum(P * P, axis=0)  # (F, N)
@@ -248,20 +227,12 @@ def guess_motion_rows(
     vinv = jnp.where(vn2 < 1e-24, 1.0, jax.lax.rsqrt(jnp.maximum(vn2, 1e-30)))
     v = v * vinv[None]
 
-    if impl is None:
-        impl = (
-            "pallas"
-            if PSC.on_tpu() and PSC.fits_vmem(F, iters, N)
-            else "xla"
-        )
-    if impl == "pallas":
-        med = PSC.score_quartile_pallas(nP, v, counts)
-    else:
-        med = PSC.score_quartile_xla(nP, v, counts)  # (F, iters)
+    med = score_quartile(nP, v, counts, impl)  # (F, iters)
 
     best = jnp.argmin(med, axis=-1)  # (F,)
     sel = (jnp.arange(iters)[None, :] == best[:, None]).astype(P.dtype)
-    vb = jnp.einsum("cfi,fi->fc", v, sel)  # exact one-hot select
+    vb = jnp.einsum(  # exact one-hot select
+        "cfi,fi->fc", v, sel, precision=jax.lax.Precision.HIGHEST)
     tiny = jnp.sum(vb * vb, axis=-1) < 1e-12
     fallback = jnp.asarray([0.0, 0.0, 1.0], vb.dtype)
     return jnp.where(tiny[:, None], fallback[None], vb)

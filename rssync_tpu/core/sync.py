@@ -1,7 +1,7 @@
 """Sync: fine alternating optimization of per-frame translation
 directions and the gyro delay.
 
-TPU-native rebuild of `SyncProblemPrivate::Sync`
+JAX rebuild of `SyncProblemPrivate::Sync`
 (ref: src/core/core_private.cpp:211-334) and its helpers
 (`FrameState::Loss/GuessMotion/GuessK`, :92-133; `Backtrack`,
 src/core_support/backtrack.cpp:3-13). Structure:
@@ -82,7 +82,7 @@ def frame_loss(P_f: jnp.ndarray, M_f: jnp.ndarray, var_k_f) -> jnp.ndarray:
     sum log1p((P M)^2 * k^2 / |M|^2) (ref :99-110 / :117-123).
     P_f is SoA (3, N); padded columns are zero and contribute
     log1p(0) = 0."""
-    PM = jnp.einsum("cn,c->n", P_f, M_f)
+    PM = jnp.einsum("cn,c->n", P_f, M_f, precision="highest")
     # floor keeps ||M||^4 representable in f32 inside the gradient;
     # M is ~unit in normal operation so the floor is never active then
     M2 = jnp.maximum(jnp.sum(M_f * M_f), 1e-12)
@@ -97,7 +97,7 @@ def window_loss(
     reduction of ref :242-254). Computed whole-window in SoA (no
     per-frame vmap needed)."""
     P = compute_problem(table, win, delay, bands)  # (3, F, N)
-    PM = jnp.einsum("cfn,fc->fn", P, M)
+    PM = jnp.einsum("cfn,fc->fn", P, M, precision="highest")
     M2 = jnp.maximum(jnp.sum(M * M, axis=-1), 1e-12)  # (F,)
     losses = jnp.sum(
         jnp.log1p(PM * PM * ((var_k * var_k) / M2)[:, None]), axis=-1
@@ -268,10 +268,8 @@ def _adjugate_apply_sym3(abcdef, v: jnp.ndarray) -> jnp.ndarray:
     """adj(A) @ v for batched symmetric 3x3 A given as its 6 unique
     entries (a, b, c, d, e, f) of shape (...,) — one inverse-iteration
     step up to scale (det division folds into the subsequent
-    normalize). Scalar-component form: a (F, 3, 3) tensor would pad
-    its trailing dims to an (8, 128) tile and every entry read becomes
-    a strided tile slice (measured: the tensor-form IRLS was ~60% of
-    the whole Sync stage)."""
+    normalize). Scalar-component form: a (F, 3, 3) tensor puts two
+    size-3 axes minor, and every entry read becomes a strided slice."""
     a, b, c, d, e, f = abcdef
     m00 = d * f - e * e
     m01 = c * e - b * f
@@ -317,11 +315,11 @@ def motion_irls(
         Mn = M_cur * jax.lax.rsqrt(
             jnp.maximum(jnp.sum(M_cur * M_cur, axis=-1, keepdims=True), 1e-30)
         )
-        u = jnp.einsum("cfn,fc->fn", P, Mn)
+        u = jnp.einsum("cfn,fc->fn", P, Mn, precision="highest")
         w = 1.0 / (1.0 + u * u * (var_k * var_k)[:, None])
         # the 6 unique entries of A = sum_n w P P^T as plain (F,)
-        # reductions — the einsum->(F,3,3) form materialized padded
-        # tiles and dominated the stage (see _adjugate_apply_sym3)
+        # reductions rather than an einsum->(F,3,3) with two size-3
+        # minor axes (see _adjugate_apply_sym3)
         wp0, wp1, wp2 = w * P0, w * P1, w * P2
         a = jnp.sum(wp0 * P0, axis=-1)
         b = jnp.sum(wp0 * P1, axis=-1)
@@ -356,7 +354,7 @@ def _backtrack_step(f_only, x0, fval, grad):
     first k with sufficient decrease. Trials run in a while_loop that
     stops at the first acceptance — the common case accepts the very
     first trial, so a typical outer iteration pays 1 loss eval instead
-    of BT_MAX_ITERS (measured: Sync(4x) 0.53 -> ~0.4 s). Under vmap
+    of BT_MAX_ITERS. Under vmap
     the loop runs until every lane has accepted, with per-lane
     first-accept masking — selection identical to the sequential
     reference. If no trial satisfies, t has decayed through all
@@ -407,7 +405,7 @@ def init_motion(
     (ref :218-223, :125-133). Returns (M (F,3), var_k (F,))."""
     P = compute_problem(table, win, delay, bands)  # (3, F, N)
     M = guess_motion_window(P, win.counts, key, SYNC_RANSAC_ITERS)
-    PM = jnp.einsum("cfn,fc->fn", P, M)
+    PM = jnp.einsum("cfn,fc->fn", P, M, precision="highest")
     var_k = clamp_k(1e2 / safe_norm(PM, axis=1))
     return M, var_k
 
@@ -439,8 +437,7 @@ def sync_window(
 
     delay_grad: "jvp" (default) computes the scalar delay gradient by
     forward-mode jax.jvp — one fused forward pass, no transposed
-    spline-select chain in the loop body (measured: 4-pass batched
-    wall 0.241 -> 0.212 s, experiments/r4_vg_jvp.py); "vjp" keeps
+    spline-select chain in the loop body; "vjp" keeps
     value_and_grad. Same derivative up to float rounding.
     """
     from rssync_tpu.core.problem import make_wide_bands

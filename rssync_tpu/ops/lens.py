@@ -1,6 +1,6 @@
 """Fisheye (Kannala-Brandt / OpenCV-fisheye) lens model, batched.
 
-TPU-native rebuild of the reference's inverse-distortion Newton solver
+JAX rebuild of the reference's inverse-distortion Newton solver
 (ref: src/core_testcode.cpp:56-95). The reference undistorts one pixel
 at a time with 9 Newton iterations and a bisection safeguard; here the
 whole feature grid is one vmapped fixed-unroll computation, and the

@@ -1,26 +1,30 @@
-"""Pallas TPU kernel: RANSAC hypothesis scoring (quartile-of-squared-
-residuals) with the residual volume resident in VMEM.
+"""RANSAC hypothesis scoring: the quartile bracket of squared residuals
+per hypothesis, by value bisection.
 
-Motivation (measured, round 3): the XLA formulation of
-`guess_motion_from_pairs`'s value bisection re-reads the
-(delays x windows x frames x hypotheses x features) squared-residual
-volume from HBM on every one of its 14 rounds — ~1.4 GB bf16 per
-8-delay PreSync chunk, ~20 GB of traffic per chunk, ~500 GB per
-PreSync call; the stage is bound on exactly this. This kernel
-computes the residuals for one window's frames and runs every
-bisection round against a VMEM-resident buffer, so the volume never
-exists in HBM at all.
+Two implementations of one contract, chosen by `score_impl()`:
 
-Numerics match the XLA path deliberately: the compare buffer is
-bf16, BISECT_ROUNDS bisection rounds on the Markov-bounded bracket,
-`hi` returned as the quantile bracket. Two benign deviations vs
-score_quartile_xla, both only material for exactly-tied hypotheses:
-residual accumulation order (three explicit FMAs vs a length-3 dot
-contraction — absorbed by the bf16 cast in practice), and the Markov
-bracket's mean, an order-sensitive f32 reduction that Mosaic and XLA
-accumulate differently on the chip, leaving the returned bracket
-endpoint a 1-ulp wobble (the bisection DECISIONS stay bf16-grid
-exact; see testing/tpu_selftest.py::check_score_quartile).
+* `score_quartile_xla` — plain JAX. Each of the BISECT_ROUNDS rounds
+  re-reads the bf16 squared-residual volume (rows x hypotheses x
+  features), so on the GPU every round is its own pass over device
+  memory.
+* `score_quartile_triton` — one Pallas kernel through Triton. A
+  program owns one row (one frame of one batch problem) and a block of
+  HYP_BLOCK hypotheses: it loads the row's three residual components
+  (features masked up to the next power of two) and its hypothesis
+  block once, forms the squared residuals in registers, and runs the
+  Markov bracket and every bisection round without touching device
+  memory again.
+
+Numerics are shared deliberately: the compare buffer is quantized to
+the bf16 grid (the kernel compares bf16-rounded values in f32, which is
+the same predicate bit for bit), BISECT_ROUNDS rounds on the
+Markov-bounded bracket, and `hi` is returned as the quantile bracket.
+The two paths may differ in the accumulation order of the bracket's
+mean (a few-ulp wobble of the returned endpoint) and in how the
+compiler contracts the 3-term residual into FMAs, which can round a
+residual on the other side of a bf16 boundary and flip one decision of
+a near-tied hypothesis: a few results in 10^5 on the H100 (see
+testing/gpu_parity.py::check_score_quartile).
 
 Scoring replaces the reference's per-hypothesis sort + n/4 selection
 (ref: src/core/core_private.cpp:34-59).
@@ -33,249 +37,135 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-#: bisection rounds (matches core/ransac.py). Round 4: the initial
-#: upper bracket is min(max, MARKOV_C * mean) — by Markov's
-#: inequality strictly more than half the valid values lie at or
-#: below 2*mean, so it always brackets the 25th percentile; the
-#: extra 1.56% margin absorbs bf16 round-up of compared elements.
-#: Residual distributions here are heavy-tailed (log1p losses), so
-#: 2*mean is typically 30-100x below max: 12 rounds on the Markov
-#: bracket resolve the quantile FINER than the previous 14 rounds on
-#: [0, max] while costing 2 fewer compare+count passes (10 rounds
-#: flipped a near-tie in test_presync_ransac_winner_is_defensible).
+#: bisection rounds. The initial upper bracket is min(max, MARKOV_C *
+#: mean): by Markov's inequality strictly more than half the valid
+#: values lie at or below 2*mean, so it always brackets the 25th
+#: percentile; the extra 1.56% margin absorbs bf16 round-up of compared
+#: elements. Residual distributions here are heavy-tailed (log1p
+#: losses), so 2*mean sits far below max and 12 rounds on the Markov
+#: bracket resolve the quantile finer than 14 rounds on [0, max] (10
+#: rounds flipped a near-tie in test_presync_ransac_winner_is_defensible).
 BISECT_ROUNDS = 12
 
 #: Markov upper-bracket multiplier (2 + bf16 rounding margin)
 MARKOV_C = 2.03125
 
-#: VMEM budget for the resident residual tile. Mosaic's scoped-vmem
-#: limit is 16 MB and the kernel's stack footprint measures ~4 live
-#: (ft, I, N) f32 buffers (res, res2, quantized copy, compare temp —
-#: 23.35 MB scoped at ft=60 / 19.02 MB at ft=32, I=200, N=130 —
-#: note the feature axis is LANE-PADDED inside the kernel, so the
-#: footprint scales with ceil(N/128)*128, not N). Budget 13.5 MB over
-#: 4 lane-padded buffers: Sync lands on the long-proven ft=16 for
-#: both N=130 and N=256 (scoped ~12 MB, under the 16 MB limit). The frame-tile size adapts per call: PreSync's
-#: I=20 fits a whole 60-frame window in one program (4x fewer
-#: programs — the stage was bound on per-program overhead, not
-#: compute), while Sync's I=200 GuessMotion still tiles. Frames (not
-#: hypotheses) are the tiled axis because Mosaic requires block LAST
-#: dims to be full or 128-divisible, and F sits second-minor
-#: everywhere.
-VMEM_BUDGET = 13_500_000
+#: hypotheses per kernel program (a power of two, as Triton requires)
+#: and warps per program: the fastest of the block/warp pairs tried at
+#: the PreSync and Sync widths on the H100 (PERF.md)
+HYP_BLOCK = 16
+NUM_WARPS = 1
 
 
-def fits_vmem(F: int, I: int, N: int) -> bool:
-    """True iff even the minimum legal frame tile (8, or F if smaller)
-    stays inside VMEM_BUDGET — i.e. the kernel can compile without
-    blowing Mosaic's 16 MB scoped-VMEM limit."""
-    n_eff = -(-N // 128) * 128  # Mosaic lane padding
-    return min(F, 8) * I * n_eff * 4 * 4 <= VMEM_BUDGET
+def score_impl() -> str:
+    """The scoring implementation for the default backend: the Triton
+    kernel on the GPU, the plain XLA bisection everywhere else."""
+    return "triton" if jax.default_backend() == "gpu" else "xla"
 
 
-def _f_tile(F: int, I: int, N: int) -> int:
-    n_eff = -(-N // 128) * 128  # Mosaic lane padding
-    ft = VMEM_BUDGET // (I * n_eff * 4 * 4)
-    if ft >= F:
-        return F
-    if ft < 8:
-        # Mosaic's minimum legal tile (8) would exceed the budget and
-        # risk a scoped-VMEM compile OOM; callers should have routed to
-        # score_quartile_xla via fits_vmem().
-        raise ValueError(
-            f"score_quartile_pallas: I={I}, N={N} (lane-padded {n_eff}) "
-            f"exceeds the {VMEM_BUDGET/1e6:.1f} MB VMEM budget even at "
-            "the minimum frame tile of 8; use score_quartile_xla"
-        )
-    # Mosaic: a non-full second-to-last block dim must be 8-divisible
-    return ft - ft % 8
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def _score_kernel(nP_ref, v_ref, cnt_ref, med_ref):
-    nP = nP_ref[...]          # (3, F, N) f32, padded features zero
-    v = v_ref[...]            # (3, F, I) f32 unit hypotheses
-    cnt = cnt_ref[...]        # (F, 1) int32 valid-feature counts
-    F = nP.shape[1]
-    N = nP.shape[2]
+def _score_kernel(nP_ref, v_ref, cnt_ref, out_ref, *, n_frames, n_feat,
+                  n_hyp, feat_block, hyp_block):
+    """One (row, hypothesis block) program. nP_ref (B, 3, F, N), v_ref
+    (B, 3, F, I), cnt_ref (B, F), out_ref (B, F, I): whole arrays, the
+    program indexes its own row."""
+    r = pl.program_id(0)
+    j = pl.program_id(1)
+    b = r // n_frames
+    f = r % n_frames
+
+    iota_n = jnp.arange(feat_block, dtype=jnp.int32)
+    in_n = iota_n < n_feat
+    hyp = j * hyp_block + jnp.arange(hyp_block, dtype=jnp.int32)
+    in_h = hyp < n_hyp
+
+    def row(c):
+        return plgpu.load(nP_ref.at[b, c, f, pl.ds(0, feat_block)],
+                          mask=in_n, other=0.0)
+
+    def hyps(c):
+        return plgpu.load(v_ref.at[b, c, f, pl.ds(j * hyp_block, hyp_block)],
+                          mask=in_h, other=0.0)
 
     res = (
-        v[0][:, :, None] * nP[0][:, None, :]
-        + v[1][:, :, None] * nP[1][:, None, :]
-        + v[2][:, :, None] * nP[2][:, None, :]
-    )  # (F, I, N)
+        hyps(0)[:, None] * row(0)[None, :]
+        + hyps(1)[:, None] * row(1)[None, :]
+        + hyps(2)[:, None] * row(2)[None, :]
+    )  # (hyp_block, feat_block)
     res2 = res * res
 
-    iota_n = jax.lax.broadcasted_iota(jnp.int32, (F, 1, N), 2)
-    valid = iota_n < cnt[:, :, None]  # (F, 1, N)
-    k = jnp.maximum(cnt, 1) // 4      # (F, 1)
+    cnt = cnt_ref[b, f]
+    valid = (iota_n < cnt)[None, :]
+    k1 = (jnp.maximum(cnt, 1) // 4 + 1).astype(jnp.float32)
 
-    # the XLA path compares in bf16; the VPU here has no bf16 compare
-    # (Mosaic: "Target does not support this comparison"), so quantize
-    # both sides to the bf16 grid and compare in f32 — bf16 -> f32 is
-    # exact, hence the predicate is identical bit for bit
+    # bf16-grid compare in f32: bf16 -> f32 is exact, so the predicate
+    # equals the XLA path's bf16 compare bit for bit
     res2m = jnp.where(valid, res2, jnp.inf).astype(
         jnp.bfloat16).astype(jnp.float32)
-    lo = jnp.zeros(res2.shape[:2], jnp.float32)          # (F, I)
     masked = jnp.where(valid, res2, 0.0)
-    mu = jnp.sum(masked, axis=-1) / jnp.maximum(cnt, 1).astype(
-        jnp.float32)
-    hi = jnp.minimum(jnp.max(masked, axis=-1), MARKOV_C * mu)  # (F, I)
+    mu = jnp.sum(masked, axis=-1) / jnp.maximum(cnt, 1).astype(jnp.float32)
+    hi = jnp.minimum(jnp.max(masked, axis=-1), MARKOV_C * mu)
+    lo = jnp.zeros_like(hi)
 
     def bisect(_, carry):
         lo, hi = carry
         mid = 0.5 * (lo + hi)
-        midq = mid[..., None].astype(jnp.bfloat16).astype(jnp.float32)
-        c = jnp.sum((res2m <= midq).astype(jnp.float32), axis=-1)
-        ge = c >= (k + 1).astype(jnp.float32)
+        midq = mid.astype(jnp.bfloat16).astype(jnp.float32)
+        c = jnp.sum((res2m <= midq[:, None]).astype(jnp.float32), axis=-1)
+        ge = c >= k1
         return jnp.where(ge, lo, mid), jnp.where(ge, mid, hi)
 
-    lo, hi = jax.lax.fori_loop(0, BISECT_ROUNDS, bisect, (lo, hi))
-    med_ref[...] = hi
+    _, hi = jax.lax.fori_loop(0, BISECT_ROUNDS, bisect, (lo, hi))
+    plgpu.store(out_ref.at[b, f, pl.ds(j * hyp_block, hyp_block)], hi,
+                mask=in_h)
 
 
-@partial(jax.jit, static_argnames=("interpret", "f_tile"))
-def score_quartile_pallas(
+@partial(jax.jit, static_argnames=("interpret", "hyp_block"))
+def score_quartile_triton(
     nP: jnp.ndarray, v: jnp.ndarray, counts: jnp.ndarray,
-    interpret: bool = False, f_tile: int | None = None,
+    interpret: bool = False, hyp_block: int = HYP_BLOCK,
 ) -> jnp.ndarray:
     """Quartile bracket of squared residuals per hypothesis.
 
-    nP: (3, F, N) row-normalized residual rows; v: (3, F, I) unit
-    hypothesis directions; counts: (F,) int32. Returns (F, I) f32.
-    vmap-able (leading batch axes become Pallas grid dimensions).
-    f_tile overrides the VMEM-budgeted frame tile (tests).
-    """
-    F, N = nP.shape[1], nP.shape[2]
-    Iq = v.shape[2]
-    ft = f_tile or _f_tile(F, Iq, N)
-    cnt = counts.astype(jnp.int32).reshape(F, 1)
-    return pl.pallas_call(
-        _score_kernel,
-        out_shape=jax.ShapeDtypeStruct((F, Iq), jnp.float32),
-        grid=(pl.cdiv(F, ft),),
-        in_specs=[
-            pl.BlockSpec((3, ft, N), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, ft, Iq), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((ft, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((ft, Iq), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(nP, v, cnt)
-
-
-def _b_tile(F: int, I: int, N: int) -> int:
-    """Batch rows per program for the batched kernel: same 4-live-
-    buffer accounting as _f_tile, applied to whole (3, F, N) problems
-    stacked along a leading batch axis."""
-    n_eff = -(-N // 128) * 128  # Mosaic lane padding
-    return VMEM_BUDGET // (F * I * n_eff * 4 * 4)
-
-
-def fits_vmem_batched(F: int, I: int, N: int) -> bool:
-    """True iff at least one whole (3, F, N) problem fits the budget —
-    the batched kernel's grid axis is the batch, so F is never tiled."""
-    return _b_tile(F, I, N) >= 1
-
-
-def _score_kernel_batched(nP_ref, v_ref, cnt_ref, med_ref):
-    """_score_kernel with a leading batch-block axis: one program
-    scores `bt` independent (3, F, N) problems, amortizing Mosaic's
-    per-program overhead (PreSync's stage cost was bound on program
-    count at ~20 us/program across delay x window programs —
-    experiments/r4_presync_split2.py puts bisection scoring at 119 of
-    267 ms with compute ~half that)."""
-    nP = nP_ref[...]          # (bt, 3, F, N) f32, padded features zero
-    v = v_ref[...]            # (bt, 3, F, I) f32 unit hypotheses
-    cnt = cnt_ref[...]        # (bt, F, 1) int32 valid-feature counts
-    bt, _, F, N = nP.shape
-
-    res = (
-        v[:, 0][..., None] * nP[:, 0][:, :, None, :]
-        + v[:, 1][..., None] * nP[:, 1][:, :, None, :]
-        + v[:, 2][..., None] * nP[:, 2][:, :, None, :]
-    )  # (bt, F, I, N)
-    res2 = res * res
-
-    iota_n = jax.lax.broadcasted_iota(jnp.int32, (bt, F, 1, N), 3)
-    valid = iota_n < cnt[..., None]   # (bt, F, 1, N)
-    k = jnp.maximum(cnt, 1) // 4      # (bt, F, 1)
-
-    res2m = jnp.where(valid, res2, jnp.inf).astype(
-        jnp.bfloat16).astype(jnp.float32)
-    lo = jnp.zeros(res2.shape[:3], jnp.float32)          # (bt, F, I)
-    masked = jnp.where(valid, res2, 0.0)
-    mu = jnp.sum(masked, axis=-1) / jnp.maximum(cnt, 1).astype(
-        jnp.float32)
-    hi = jnp.minimum(jnp.max(masked, axis=-1), MARKOV_C * mu)
-
-    def bisect(_, carry):
-        lo, hi = carry
-        mid = 0.5 * (lo + hi)
-        midq = mid[..., None].astype(jnp.bfloat16).astype(jnp.float32)
-        c = jnp.sum((res2m <= midq).astype(jnp.float32), axis=-1)
-        ge = c >= (k + 1).astype(jnp.float32)
-        return jnp.where(ge, lo, mid), jnp.where(ge, mid, hi)
-
-    lo, hi = jax.lax.fori_loop(0, BISECT_ROUNDS, bisect, (lo, hi))
-    med_ref[...] = hi
-
-
-@partial(jax.jit, static_argnames=("interpret", "b_tile"))
-def score_quartile_pallas_batched(
-    nP: jnp.ndarray, v: jnp.ndarray, counts: jnp.ndarray,
-    interpret: bool = False, b_tile: int | None = None,
-) -> jnp.ndarray:
-    """Quartile bracket for a BATCH of independent scoring problems.
-
-    nP: (B, 3, F, N); v: (B, 3, F, I); counts: (B, F) int32. Returns
-    (B, F, I) f32, bitwise equal to vmapping score_quartile_pallas
-    over the batch axis — but with _b_tile problems per program
-    instead of Mosaic grid cells of one. B is padded up to the tile
-    (padded rows carry zero counts -> hi = 0, sliced off)."""
+    nP: ([B,] 3, F, N) row-normalized residual rows; v: ([B,] 3, F, I)
+    unit hypothesis directions; counts: ([B,] F) int32 valid features.
+    Returns ([B,] F, I) f32. One kernel launch over B*F rows x
+    ceil(I / hyp_block) hypothesis blocks; no transposes or pads."""
+    batched = nP.ndim == 4
+    if not batched:
+        nP, v, counts = nP[None], v[None], counts[None]
     B, _, F, N = nP.shape
-    Iq = v.shape[-1]
-    bt = b_tile or max(1, min(B, _b_tile(F, Iq, N)))
-    pad = (-B) % bt
-    if pad:
-        nP = jnp.pad(nP, ((0, pad), (0, 0), (0, 0), (0, 0)))
-        v = jnp.pad(v, ((0, pad), (0, 0), (0, 0), (0, 0)))
-        counts = jnp.pad(counts, ((0, pad), (0, 0)))
-    Bp = B + pad
-    cnt = counts.astype(jnp.int32).reshape(Bp, F, 1)
+    n_hyp = v.shape[-1]
+    hb = min(hyp_block, _next_pow2(n_hyp))
+    kernel = partial(
+        _score_kernel, n_frames=F, n_feat=N, n_hyp=n_hyp,
+        feat_block=_next_pow2(N), hyp_block=hb,
+    )
     out = pl.pallas_call(
-        _score_kernel_batched,
-        out_shape=jax.ShapeDtypeStruct((Bp, F, Iq), jnp.float32),
-        grid=(Bp // bt,),
-        in_specs=[
-            pl.BlockSpec((bt, 3, F, N), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, 3, F, Iq), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, F, 1), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((bt, F, Iq), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
+        kernel,
+        out_shape=jax.ShapeDtypeStruct((B, F, n_hyp), jnp.float32),
+        grid=(B * F, pl.cdiv(n_hyp, hb)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(nP, v, cnt)
-    return out[:B]
+        name="score_quartile",
+    )(nP, v, counts.astype(jnp.int32))
+    return out if batched else out[0]
 
 
 def score_quartile_xla(
     nP: jnp.ndarray, v: jnp.ndarray, counts: jnp.ndarray
 ) -> jnp.ndarray:
-    """XLA reference/fallback. Residuals use the SAME explicit f32
-    FMA chain as the Pallas kernel (not an einsum: on TPU a default-
-    precision einsum contracts in bf16, which the round-4 on-chip
-    selftest caught as a 7e-3 kernel-vs-XLA divergence; elementwise
-    f32 mul/add are IEEE-exact on every backend, so this form is
-    bit-identical to the kernel on CPU and TPU alike)."""
+    """Plain-JAX scoring of one problem: nP (3, F, N), v (3, F, I),
+    counts (F,) -> (F, I). Residuals use an explicit f32 FMA chain
+    (the same form as the kernel) rather than an einsum, whose default
+    precision may contract in reduced precision on an accelerator."""
     N = nP.shape[-1]
 
     def one_frame(nP_f, v_f, count):
@@ -306,8 +196,17 @@ def score_quartile_xla(
     return jax.vmap(one_frame, in_axes=(1, 1, 0))(nP, v, counts)
 
 
-def on_tpu() -> bool:
-    try:
-        return "TPU" in jax.devices()[0].device_kind.upper()
-    except Exception:
-        return False
+def score_quartile(
+    nP: jnp.ndarray, v: jnp.ndarray, counts: jnp.ndarray,
+    impl: str | None = None,
+) -> jnp.ndarray:
+    """Dispatch on `impl` ("triton" | "xla"; None = score_impl()).
+    Shapes as score_quartile_triton, with or without the batch axis."""
+    impl = impl or score_impl()
+    if impl == "triton":
+        return score_quartile_triton(nP, v, counts)
+    if impl != "xla":
+        raise ValueError(f"unknown scoring impl {impl!r}")
+    if nP.ndim == 4:
+        return jax.vmap(score_quartile_xla)(nP, v, counts)
+    return score_quartile_xla(nP, v, counts)

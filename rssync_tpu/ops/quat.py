@@ -1,6 +1,6 @@
 """Batched quaternion algebra.
 
-TPU-native equivalent of the reference quaternion library
+JAX equivalent of the reference quaternion library
 (ref: src/core_support/quat.cpp:5-101). Quaternions are arrays of shape
 (..., 4) in (w, x, y, z) order; 3-vectors are (..., 3). Every function
 broadcasts over leading axes and is safe under jit/vmap/grad: the
@@ -70,7 +70,7 @@ def rotate_point(q: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """Rotate 3-vector p by quaternion q: vec(q * (0,p) * q^-1).
 
     (ref: src/core_support/quat.cpp:45-47). Expanded to the standard
-    rotation-matrix-free form (2 cross products) — cheaper on the VPU
+    rotation-matrix-free form (2 cross products) — cheaper elementwise
     than two Hamilton products and exactly equal for unit q. For
     non-unit q the reference computes q*(0,p)*conj(q) which scales the
     result by |q|^2; we replicate that scaling.

@@ -1,6 +1,6 @@
 """Uniform-grid natural cubic splines, split host-fit / device-eval.
 
-TPU-native rebuild of the reference's `spline` + `ndspline`
+JAX rebuild of the reference's `spline` + `ndspline`
 (ref: src/core_support/minispline.cpp:3-64, ndspline.cpp:13-27).
 
 Design: the reference fits one scalar spline per quaternion row with a
@@ -12,7 +12,7 @@ loss — it runs on **device** as a gather + Horner over a precomputed
 coefficient table.
 
 Precision scheme (the reason this module looks different from the
-reference): TPU f32 cannot represent `(ts - quats_start + delay) *
+reference): f32 on the device cannot represent `(ts - quats_start + delay) *
 sample_rate` (ref: src/core/core_private.cpp:18-19) for clips ~100 s
 long at sub-microsecond resolution. We therefore split every evaluation
 position into `i0` (int32 knot index at delay=0, computed on host in
@@ -108,11 +108,11 @@ def pack_table(coeffs: np.ndarray) -> np.ndarray:
     (4*R, n): row R*c + r holds coefficient c (0=y,1=b,2=c,3=d) of
     spline row r, knots along the LAST axis.
 
-    TPU layout rationale: gathers index the knot axis; with knots last,
+    Layout rationale: gathers index the knot axis; with knots last,
     a gather yields (4R, ...batch) — small structure dims leading, big
-    batch dims in the (8,128)-tiled trailing positions. The transposed
-    layout would pad a (batch, 4, 4) gather output 32x (at PreSync
-    scale that is a ~100 GB allocation)."""
+    batch dims minor. The transposed layout would put a (batch, 4, 4)
+    gather output's size-4 axes minor, which a tiled layout pads many
+    times over."""
     n, R, _ = coeffs.shape
     return np.ascontiguousarray(coeffs.transpose(2, 1, 0).reshape(4 * R, n))
 

@@ -4,7 +4,7 @@ Multi-chip scaling (SURVEY §5.8, BASELINE configs[4]): sync windows
 are embarrassingly parallel, so the batch axis shards over a 1-D
 `jax.sharding.Mesh` and XLA partitions the whole batched program —
 per-window compute stays chip-local (no collectives on the hot path;
-only the tiny result gather rides ICI).
+only the tiny result gather crosses the interconnect).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Multi-clip batching: windows from SEVERAL clips (each with its own
 gyro spline) sync as one batched launch.
 
-BASELINE configs[4] ("N videos x M syncpoints ... on v5e-8"): the
+BASELINE configs[4] ("N videos x M syncpoints" over several chips): the
 window axis already scales across a Mesh (parallel/mesh.py); this
 module adds the per-window spline-table axis so the batch can mix
 clips. Tables are padded to a common knot count with edge-replicated

@@ -14,7 +14,7 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="rssync_tpu.pipeline",
-        description="TPU-native gyro-to-video sync (rs-sync recipe format)",
+        description="GPU gyro-to-video sync (rs-sync recipe format)",
     )
     ap.add_argument("recipe", nargs="+",
                     help="JSON recipe path (times in ms); several paths "
@@ -24,7 +24,7 @@ def main(argv=None) -> int:
                          "(N clips x M syncpoints on a single window axis; "
                          "shardable over a device mesh)")
     ap.add_argument("--method", choices=["lk", "dis"], default="lk",
-                    help="tracker: TPU pyramidal LK (default) or host cv2 DIS")
+                    help="tracker: on-device pyramidal LK (default) or host cv2 DIS")
     ap.add_argument("--sequential", action="store_true",
                     help="per-syncpoint loop instead of batched launches")
     ap.add_argument("--seed", type=int, default=0)

@@ -181,7 +181,7 @@ def test_sync_jvp_gradient_matches_vjp(engine_problem, scene):
     """delay_grad="jvp" (default) and "vjp" are the same derivative up
     to float rounding: full Sync trajectories must agree to a few µs
     and land on the same final delay (regression pin for the
-    forward-mode delay gradient, experiments/r4_vg_jvp.py)."""
+    forward-mode delay gradient)."""
     table, win, _ = engine_problem
     out = {}
     for mode in ("jvp", "vjp"):

@@ -258,30 +258,6 @@ def test_probe_reports_where_parsing_stopped(tmp_path):
     assert "at " in text  # traceback frames locating the failure
 
 
-def test_floor_model():
-    """The committed platform-floor constants must reproduce the r4
-    measured analysis: track ~1.5x, presync ~1.05x, sync ~1.1x at the
-    round-4 bench numbers (docs/KERNELS.md 'Platform floors')."""
-    from rssync_tpu.utils.floors import floor_report
-
-    fr = floor_report(
-        0.935, 0.226, 0.205,
-        n_pairs=3600, height=2028, width=2704,
-        n_delays=200, n_windows=30, n_frames=60,
-    )
-    assert 1.3 < fr["track"]["x_floor"] < 1.8
-    assert 0.9 < fr["presync"]["x_floor"] < 1.3
-    assert 0.9 < fr["sync4x"]["x_floor"] < 1.4
-    assert not any(v["warn"] for v in fr.values())
-    # a 3x-regressed stage must warn
-    bad = floor_report(
-        3.0, 0.226, 0.205,
-        n_pairs=3600, height=2028, width=2704,
-        n_delays=200, n_windows=30, n_frames=60,
-    )
-    assert bad["track"]["warn"]
-
-
 def test_probe_gcsv_and_cli(tmp_path):
     """Text formats get a header dump; the CLI returns 0/1."""
     from rssync_tpu.frontend.probe import main

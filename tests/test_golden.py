@@ -3,7 +3,7 @@
 tests/golden/golden.npz is produced by golden/generate.py driving
 librssync_golden.so — the reference's own src/core/core_private.cpp
 compiled unmodified against the shims in golden/shim (see
-golden/README.md). These tests check the TPU rebuild against those
+golden/README.md). These tests check the JAX rebuild against those
 committed artifacts: P matrices, frame losses + jacobians, raw spline
 samples (including the extrapolation-boundary quirks), PreSync /
 DebugPreSync behavior, and 4-pass Sync delays.

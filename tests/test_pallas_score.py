@@ -1,10 +1,12 @@
-"""Parity tests for the Pallas RANSAC-scoring kernel (interpreter
-mode on CPU) against the XLA bisection it replaces on TPU, and for
-the whole-window guesser against the original per-frame vmap path."""
+"""Parity tests for the Pallas (Triton) RANSAC-scoring kernel in
+interpreter mode on the CPU against the plain XLA bisection, for the
+backend choice between them, and for the whole-window guesser against
+the original per-frame vmap path."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from rssync_tpu.core.ransac import (
     guess_motion,
@@ -12,7 +14,8 @@ from rssync_tpu.core.ransac import (
     sample_pairs,
 )
 from rssync_tpu.ops.pallas_score import (
-    score_quartile_pallas,
+    score_quartile,
+    score_quartile_triton,
     score_quartile_xla,
 )
 
@@ -31,34 +34,31 @@ def _problem(rng, F=7, N=40, I=20):
 
 def test_kernel_matches_xla_scoring(rng):
     _, nP, v, counts = _problem(rng)
-    a = np.asarray(score_quartile_pallas(nP, v, counts, interpret=True))
+    a = np.asarray(score_quartile_triton(nP, v, counts, interpret=True))
     b = np.asarray(score_quartile_xla(nP, v, counts))
     np.testing.assert_allclose(a, b, rtol=1e-6, atol=0)
 
 
 def test_kernel_matches_xla_scoring_tiled(rng):
-    """F larger than the frame tile (partial trailing tile) x 200
-    hypotheses exercises the frame-axis grid (Sync's GuessMotion
-    path; f_tile=16 forces partial trailing tiles like the budgeted
-    tile does at Sync's real shapes)."""
+    """200 hypotheses span several hypothesis blocks, the last one
+    partial (Sync's GuessMotion shape); hyp_block=8 forces more of
+    them than the default."""
     _, nP, v, counts = _problem(rng, F=37, N=24, I=200)
-    a = np.asarray(score_quartile_pallas(
-        nP, v, counts, interpret=True, f_tile=16))
+    a = np.asarray(score_quartile_triton(
+        nP, v, counts, interpret=True, hyp_block=8))
     b = np.asarray(score_quartile_xla(nP, v, counts))
     np.testing.assert_allclose(a, b, rtol=1e-6, atol=0)
 
 
 def test_kernel_matches_vmapped(rng):
-    """Leading batch axes become grid dimensions."""
+    """A leading batch axis is flattened with the frame axis into the
+    kernel's row axis: same values as vmapping the XLA path."""
     B = 3
     packs = [_problem(rng) for _ in range(B)]
     nP = jnp.stack([p[1] for p in packs])
     v = jnp.stack([p[2] for p in packs])
     counts = jnp.stack([p[3] for p in packs])
-    a = np.asarray(
-        jax.vmap(lambda n, vv, c: score_quartile_pallas(
-            n, vv, c, interpret=True))(nP, v, counts)
-    )
+    a = np.asarray(score_quartile_triton(nP, v, counts, interpret=True))
     b = np.asarray(
         jax.vmap(score_quartile_xla)(nP, v, counts)
     )
@@ -66,24 +66,21 @@ def test_kernel_matches_vmapped(rng):
 
 
 def test_batched_kernel_matches_vmapped(rng):
-    """score_quartile_pallas_batched (multiple whole problems per
-    program + batch padding) must equal the per-problem kernel and
-    the XLA path bit for bit."""
-    from rssync_tpu.ops.pallas_score import score_quartile_pallas_batched
-
-    B = 5  # deliberately NOT divisible by b_tile=2 (exercises padding)
+    """The batched call equals the per-problem kernel bit for bit (the
+    row index is the only thing batching changes) and the XLA path."""
+    B = 5
     packs = [_problem(rng) for _ in range(B)]
     nP = jnp.stack([p[1] for p in packs])
     v = jnp.stack([p[2] for p in packs])
     counts = jnp.stack([p[3] for p in packs])
-    a = np.asarray(score_quartile_pallas_batched(
-        nP, v, counts, interpret=True, b_tile=2))
+    a = np.asarray(score_quartile_triton(nP, v, counts, interpret=True))
     b = np.asarray(jax.vmap(score_quartile_xla)(nP, v, counts))
     np.testing.assert_allclose(a, b, rtol=1e-6, atol=0)
-    c = np.asarray(
-        jax.vmap(lambda n, vv, cc: score_quartile_pallas(
-            n, vv, cc, interpret=True))(nP, v, counts)
-    )
+    c = np.stack([
+        np.asarray(score_quartile_triton(
+            nP[i], v[i], counts[i], interpret=True))
+        for i in range(B)
+    ])
     np.testing.assert_array_equal(a, c)
 
 
@@ -136,36 +133,77 @@ def test_window_guesser_pair_draws_match(rng):
     np.testing.assert_array_equal(np.asarray(r1), np.asarray(r1_ref))
 
 
-def test_frame_tile_known_shapes():
-    """Pin the VMEM-budgeted tile at the production shapes: PreSync
-    (I=20) must run whole 60-frame windows in one program; Sync
-    (I=200) must land on the proven ft=16 for BOTH N=130 and N=256
-    (the footprint scales with the lane-padded N — ft=32 at N=130
-    OOM'd the 16 MB scoped-VMEM limit at 19.02 MB, caught by the
-    bench). Non-full tiles must be 8-divisible (Mosaic block rule)."""
-    from rssync_tpu.ops.pallas_score import _f_tile
-
-    assert _f_tile(60, 20, 256) == 60   # PreSync: whole window
-    assert _f_tile(60, 200, 130) == 16  # Sync, bench feature count
-    assert _f_tile(60, 200, 256) == 16  # Sync, padded feature count
-    for F in (37, 60, 61):
-        for I in (20, 200, 400):
-            ft = _f_tile(F, I, 256)
-            assert ft == F or ft % 8 == 0
-            assert 8 <= ft <= F or ft == F
+@pytest.mark.parametrize("F,I,N", [(60, 20, 130), (8, 200, 130),
+                                   (8, 200, 256)])
+def test_kernel_real_widths(rng, F, I, N):
+    """PreSync (I=20: one hypothesis block, 12 lanes masked) and Sync
+    (I=200: seven blocks, the last partial) widths; N=130 is masked up
+    to a 256-wide feature block. Tolerance: the Markov bracket's mean
+    is a sum of up to N f32 terms taken in another order, at most
+    (N-1) * 2^-24 relative (1.5e-5 at N=256); every bisection decision
+    is bf16-grid exact on both paths."""
+    _, nP, v, counts = _problem(rng, F=F, N=N, I=I)
+    a = np.asarray(score_quartile_triton(nP, v, counts, interpret=True))
+    b = np.asarray(score_quartile_xla(nP, v, counts))
+    np.testing.assert_allclose(a, b, rtol=2e-5, atol=0)
 
 
-def test_vmem_overflow_raises_and_gates():
-    """When even the minimum legal frame tile (8) exceeds the VMEM
-    budget (e.g. I=400 hypotheses with a lane-padded N=384), _f_tile
-    must raise rather than silently return a tile that compiles into
-    a Mosaic scoped-VMEM OOM, and fits_vmem must steer callers to the
-    XLA path (ADVICE r3)."""
-    import pytest
-    from rssync_tpu.ops.pallas_score import _f_tile, fits_vmem
+def test_kernel_empty_and_single_feature_rows(rng):
+    """counts 0 and 1: an empty row scores exactly 0 on both paths; a
+    one-feature row's bracket starts at [0, x] with no mean to reorder,
+    so it agrees to the last ulp of the residual itself."""
+    _, nP, v, counts = _problem(rng, F=6, N=130, I=20)
+    counts = counts.at[0].set(0).at[1].set(1)
+    a = np.asarray(score_quartile_triton(nP, v, counts, interpret=True))
+    b = np.asarray(score_quartile_xla(nP, v, counts))
+    assert np.all(a[0] == 0.0) and np.all(b[0] == 0.0)
+    np.testing.assert_allclose(a[1], b[1], rtol=3e-7, atol=0)
+    np.testing.assert_allclose(a, b, rtol=2e-5, atol=0)
 
-    assert not fits_vmem(60, 400, 300)  # 8*400*384*16 = 19.7 MB
-    with pytest.raises(ValueError, match="VMEM budget"):
-        _f_tile(60, 400, 300)
-    assert fits_vmem(60, 200, 256)
-    assert fits_vmem(60, 400, 256)  # exactly 13.1 MB, inside budget
+
+def test_score_impl_follows_backend(rng, monkeypatch):
+    """The kernel is the GPU backend's choice; every other backend
+    takes the XLA bisection. An unknown name is an error."""
+    from rssync_tpu.ops import pallas_score as PSC
+
+    assert PSC.score_impl() == "xla"  # the suite runs on the CPU
+    _, nP, v, counts = _problem(rng)
+    np.testing.assert_array_equal(
+        np.asarray(score_quartile(nP, v, counts)),
+        np.asarray(score_quartile_xla(nP, v, counts)),
+    )
+    monkeypatch.setattr(PSC.jax, "default_backend", lambda: "gpu")
+    assert PSC.score_impl() == "triton"
+    with pytest.raises(ValueError, match="unknown scoring impl"):
+        score_quartile(nP, v, counts, impl="cuda")
+
+
+def _bf16(x):
+    return np.asarray(jnp.asarray(x, jnp.float32).astype(jnp.bfloat16),
+                      np.float64)
+
+
+@pytest.mark.parametrize("F,I,N", [(9, 20, 33), (5, 200, 130)])
+def test_xla_scoring_matches_numpy_oracle(rng, F, I, N):
+    """The bisection brackets the (k+1)-th smallest bf16-rounded
+    squared residual, k = max(count, 1) // 4 (the reference's n/4
+    quartile): bf16(hi) is at or above it, and hi minus the final
+    bracket width (Markov bracket / 2^BISECT_ROUNDS) is at or below
+    it, up to one bf16 rounding step."""
+    from rssync_tpu.ops.pallas_score import BISECT_ROUNDS, MARKOV_C
+
+    _, nP, v, counts = _problem(rng, F=F, N=N, I=I)
+    out = np.asarray(score_quartile_xla(nP, v, counts), np.float64)
+    nP_np = np.asarray(nP)
+    v_np = np.asarray(v)
+    for f in range(F):
+        c = int(counts[f])
+        res = (v_np[0, f][:, None] * nP_np[0, f][None, :c]
+               + v_np[1, f][:, None] * nP_np[1, f][None, :c]
+               + v_np[2, f][:, None] * nP_np[2, f][None, :c])
+        res2 = (res * res).astype(np.float64)
+        q = np.sort(_bf16(res2), axis=-1)[:, max(c, 1) // 4]
+        hi0 = np.minimum(res2.max(-1), MARKOV_C * res2.mean(-1))
+        width = hi0 * (1 + 1e-5) / 2.0 ** BISECT_ROUNDS
+        assert np.all(_bf16(out[f]) >= q)
+        assert np.all((out[f] - width) * (1 - 2.0 ** -8) <= q)
